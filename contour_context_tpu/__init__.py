@@ -1,17 +1,18 @@
-"""contour_context_tpu: a TPU-native (JAX/XLA/Pallas) rebuild of the capabilities of
+"""contour_context_tpu: a JAX/XLA rebuild, for accelerators, of the capabilities of
 "Contour Context: Abstract Structural Distribution for 3D LiDAR Loop Detection and
 Metric Pose Estimation" (ICRA 2023, reference implementation: lewisjiang/contour-context).
 
 This is NOT a port. The reference is a single-threaded C++14 pipeline built on
-OpenCV/Eigen/Ceres/nanoflann; this package re-designs every component TPU-first:
+OpenCV/Eigen/Ceres/nanoflann; this package re-designs every component as
+batched fixed-shape device code:
 
 - BEV rasterization        -> scatter-max + argmax-payload gather
 - contour extraction       -> multi-level label-propagation connected components +
                               segment-sum moments, fixed-shape contour tables
 - retrieval keys           -> ring histogram as a dense masked Gaussian contraction
-- BCI constellation        -> batched 256-lane boolean bit ops + batched circular
+- BCI constellation        -> batched 256-bit boolean ops + batched circular
                               window consensus                  (ops/descriptor.py,
-                              ops/cascade.py; Pallas variants in ops/pallas_kernels.py)
+                              ops/cascade.py)
 - kd-tree retrieval        -> masked brute-force batched L2 top-k over an
                               HBM-resident key matrix, optionally row-sharded over
                               a device mesh                     (db.py, parallel.py)

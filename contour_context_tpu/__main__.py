@@ -17,7 +17,8 @@ from typing import Optional, Sequence
 from contour_context_tpu.config import PipelineConfig, load_pipeline_config_yaml
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None):
+    """Replay a sequence; returns the finished LoopClosurePipeline."""
     ap = argparse.ArgumentParser(prog="python -m contour_context_tpu",
                                  description=__doc__)
     ap.add_argument("--config", help="reference-format YAML config")
@@ -57,6 +58,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     from contour_context_tpu.eval.evaluator import ContLCDEvaluator
     from contour_context_tpu.pipeline import LoopClosurePipeline
+    from contour_context_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     ev = ContLCDEvaluator(fpath_pose, fpath_laser, cfg.correlation_thres)
     pipe = LoopClosurePipeline(cfg, ev, capacity=max(len(ev) + 8, 64),
@@ -84,6 +88,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     fn = sum(1 for r in pipe.results if r.tfpn == 3)
     print("done: %d scans, tp=%d fp=%d fn=%d -> %s"
           % (len(pipe.results), tp, fp, fn, fpath_outcome))
+    return pipe
 
 
 if __name__ == "__main__":

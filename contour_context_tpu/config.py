@@ -15,9 +15,9 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 # ---------------------------------------------------------------------------
-# Fixed-shape capacity constants for the TPU dense-array layout.
-# The reference uses variable-size std::vector everywhere; on TPU every per-scan
-# structure is a fixed-shape dense array with validity masks.  These caps bound
+# Fixed-shape capacity constants for the device dense-array layout.
+# The reference uses variable-size std::vector everywhere; on the device every
+# per-scan structure is a fixed-shape dense array with validity masks.  These caps bound
 # the dense axes.  They are deliberately generous; truncation beyond them is
 # counted and reported by the pipeline.
 # ---------------------------------------------------------------------------
@@ -68,39 +68,30 @@ class ContourManagerConfig:
     piv_firsts: int = 6
     dist_firsts: int = 10
     roi_radius: float = 10.0
-    # TPU capacity knobs (not in reference; dense-table bounds)
+    # device capacity knobs (not in reference; dense-table bounds)
     max_contours: int = MAX_CONTOURS_PER_LEVEL
     max_points: int = 131072   # point-cloud pad size (KITTI HDL-64E: ~120-130k)
     pix_pool: int = 4096       # above-gate pixel pool for the ring keys
                                # (KITTI-style scenes occupy ~2-6k of 22.5k cells)
-    use_pallas_ring: bool = False  # Pallas ring-key kernel (ops/pallas_kernels.py);
-                                   # the XLA default is equally fast at 150x150
     keys_bf16: bool = True     # keep the DB's SEARCH-LAYOUT key copy
-                               # (ContourDB.keys_q) bfloat16: halves the HBM
-                               # traffic of city-scale search. The archived
-                               # ScanDesc.keys stay exact f32 (oracle +
-                               # checkpoint chain unaffected); only key-hit
-                               # RANKING near the distance bound rounds, and
-                               # the cascade re-verifies every survivor
-                               # exactly. On-chip 131k-scan search stage
-                               # (headline_split_bench bigdb, 2026-08-20):
-                               # cover2+bf16 1.43-2.04 ms vs cover+f32
-                               # 2.65-2.77 ms per query. Default ON with
-                               # topk_strategy="cover2" (the pair measured
-                               # together; cover2 at f32 is SLOWER — 5.1-5.6)
+                               # (ContourDB.keys_q) bfloat16: halves the
+                               # bytes the city-scale search streams. The
+                               # archived ScanDesc.keys stay exact f32
+                               # (oracle + checkpoint chain unaffected); only
+                               # key-hit RANKING near the distance bound
+                               # rounds, and the cascade re-verifies every
+                               # survivor exactly. Paired with
+                               # topk_strategy="cover2" (the two were chosen
+                               # together)
     cc_flush: str = "hillis"   # segmented run-flush lowering in cc_labels:
                                # "hillis" = Hillis-Steele doubling shift+max
                                # (2 ops x log2(n) steps per direction) +
                                # separable shift-based 3x3 window min;
                                # "scan" = lax.associative_scan odd-even
-                               # recursion + lax.reduce_window (the r2/r3
-                               # lowering). Label-identical (the fixpoint is
-                               # lowering-independent; tests pin element
-                               # equality) — pure speed knob. On-chip A/B in
-                               # the shipping vmapped-16 chain form
-                               # (scripts/cc_variants_bench.py --vmap 16,
-                               # 2026-08-20): hillis+sep 0.854 vs scan
-                               # 3.243 ms/scan (raster prefix included)
+                               # recursion + lax.reduce_window. Label-
+                               # identical (the fixpoint is lowering-
+                               # independent; tests pin element equality) —
+                               # a pure speed knob; "hillis" issues fewer ops
     view_stat: ContourViewStatConfig = field(default_factory=ContourViewStatConfig)
 
     def __post_init__(self):
@@ -137,7 +128,7 @@ class GMMOptConfig:
     min_area_perc: float = 0.95
     levels: Tuple[int, ...] = (1, 2, 3, 4)
     cov_dilate_scale: float = 2.0
-    # TPU capacity knobs
+    # device capacity knobs
     max_gmm_ellipses: int = 32   # per level, ellipses kept to reach min_area_perc
     gn_iters: int = 10           # ceres: max_num_iterations=10 (correlation.h:215)
 
@@ -206,23 +197,17 @@ class ContourDBConfig:
     q_levels: Tuple[int, ...] = (1, 2, 3)
     cont_sim: ContourSimThresConfig = field(default_factory=ContourSimThresConfig)
     tb: TreeBucketConfig = field(default_factory=TreeBucketConfig)
-    # TPU capacity knobs
+    # device capacity knobs
     max_check_cands: int = 256    # candidate hints compacted into the batched
                                   # check cascade (KITTI averages ~18 hits/scan;
                                   # dense self-similar scenes spike into the
                                   # hundreds; overflow keeps the nearest-by-key-
                                   # distance hits and is counted in
-                                  # ContourDB.counters). Default from the
-                                  # on-chip cap-vs-recall sweep at ~35x-KITTI
-                                  # density (scripts/cap_recall_bench.py,
-                                  # 2026-08-20, identical epochs): found/ms =
-                                  # 282/3.05 (cap 128), 284/3.42 (256),
-                                  # 284/3.90 (512), 284/4.16 (1024, zero
-                                  # overflow) — recall saturates at 256 with
-                                  # IDENTICAL missed sets above it (the
-                                  # residual misses are world geometry, not
-                                  # cap truncation), so 256 buys 512's recall
-                                  # 0.48 ms/scan cheaper.
+                                  # ContourDB.counters). In a cap sweep at
+                                  # ~35x-KITTI density recall saturated at 256:
+                                  # caps 512 and 1024 missed the identical scans
+                                  # (the residual misses are world geometry,
+                                  # not cap truncation)
     max_pass_hints: int = 128     # cascade survivors fed to the on-device proposal merge
     max_cand_poses: int = 64      # candidate pose rows in the on-device
                                   # CandidateManager (the reference is unbounded;
@@ -237,20 +222,15 @@ class ContourDBConfig:
                                   # materialized matrix) or "block"
                                   # (two-stage per-4096-block min-k). All
                                   # element-exact vs lax.top_k incl. tie
-                                  # order. On-chip per 131k-scan query
-                                  # (2026-08-20, headline_split_bench
-                                  # bigdb): cover2+bf16 keys_q 1.43-2.04 ms
-                                  # vs cover+f32 2.65-2.77; NOTE cover2
-                                  # with F32 keys_q measured SLOWER
-                                  # (5.1-5.6) — pair cover2 with keys_bf16
+                                  # order. cover2 is paired with keys_bf16
     cascade_chunk: int = 128      # check-cascade chunk width W: the cascade
                                   # compiles ONCE at width W and runs over
                                   # ceil(n_valid/W) chunks (result-identical
                                   # — per-hint independent ops), so cost
                                   # tracks the live hint count instead of
                                   # the flat max_check_cands pad; KITTI-like
-                                  # streams average ~18 hits/scan vs the 512
-                                  # cap (db._cascade_chunked). 0 = unchunked.
+                                  # streams average ~18 hits/scan
+                                  # (db._cascade_chunked). 0 = unchunked.
     check1_prefilter: bool = True  # run check 1 (anchor checkSim — a few
                                   # scalar gathers + elementwise math per
                                   # hint) over ALL selected hints first and
@@ -260,7 +240,7 @@ class ContourDBConfig:
                                   # and pass2/3 require pass1, so skipped
                                   # rows contribute nothing downstream —
                                   # records are bit-identical (pinned by
-                                  # tests/test_fused_step.py), the chunk
+                                  # tests/test_fused_query.py), the chunk
                                   # count drops from ceil(n_valid/W) to
                                   # ceil(aft1/W). Only active when the
                                   # cascade actually runs chunked.
@@ -268,14 +248,9 @@ class ContourDBConfig:
                                   # step_chain/_dyn are vmapped in sub-batches
                                   # of this many scans (db._build_descs_chunked);
                                   # 1 = per-scan builds inside the sequential
-                                  # loop (no chunk machinery). 16 won in r3
-                                  # when the CC stage was op-count-bound; the
-                                  # post-hillis lowering flipped it — full
-                                  # dyn chain on-chip 2026-08-20
-                                  # (scripts/desc_batch_ab.py, identical
-                                  # scans): B=1 4.203 ms/scan vs B=16 4.828,
-                                  # B=8 4.928, B=4 5.837. Re-A/B whenever
-                                  # the descriptor lowering changes.
+                                  # loop (no chunk machinery). A lowering knob:
+                                  # re-decide it whenever the descriptor
+                                  # lowering changes.
     p_pot: Optional[int] = 128    # angular-window pair capacity per hint in
                                   # the check-2/3 cascade (None = ops/
                                   # cascade.P_POT, 512): the ascending-angle
@@ -283,15 +258,10 @@ class ContourDBConfig:
                                   # pairs; truncation beyond it is counted
                                   # per check-1 survivor in ContourDB.
                                   # counters["overflow_pot"]. The window +
-                                  # member stages scale ~O(p_pot^2): on-chip
-                                  # 512 -> 128 saves ~0.09 ms per 128-hint
-                                  # chunk (scripts/cascade_split_bench.py,
-                                  # 2026-08-20). Default 128 rests on the
-                                  # measured pool audit at the densest
-                                  # (35x-KITTI) headline load: true pool
-                                  # sizes p50=4 / p99=21 / max=45 over 5903
-                                  # check-1 survivors (headline_split_bench
-                                  # pair_pool_pass1, 2026-08-20) — 2.8x
+                                  # member stages scale ~O(p_pot^2). At the
+                                  # densest (35x-KITTI) synthetic load the
+                                  # true pool sizes were p50=4 / p99=21 /
+                                  # max=45 over 5903 check-1 survivors — 2.8x
                                   # headroom; overflow_pot discloses if a
                                   # denser map ever clips (raise to None/512
                                   # then).

@@ -1,4 +1,4 @@
-"""Live loop-closure view: the rviz connection-line display, TPU-shell style.
+"""Live loop-closure view: the rviz connection-line display without ROS.
 
 The reference's online shell publishes the trajectory and every accepted loop
 as a green (TP) / red (FP) line strip to rviz while the bag plays

@@ -1,6 +1,6 @@
 """Online streaming mode: per-scan loop detection on a live scan feed.
 
-The TPU-native analog of the reference's online shell (bag_play_test.cpp:
+The analog of the reference's online shell (bag_play_test.cpp:
 188-344 + BaseROSSpinner, spinner_ros.h:27-206) without ROS: scans are pushed
 into a bounded queue by any producer (sensor driver, bag reader, socket); a
 spinner thread runs the same device pipeline as the batch driver and emits

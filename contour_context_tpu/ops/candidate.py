@@ -76,7 +76,7 @@ def _dense_pair_maps_rows(pair_valid, pair_level, pair_seq_src, pair_seq_tgt,
     pair's perc — the reference's std::map setdefault semantics
     (contour_db.h:305), which the host replica in db.py also pins.
     Built as broadcast compares + reductions (no scatters: a (H, 601)
-    scatter-add lowers to a serialized TPU scatter)."""
+    scatter-add lowers to a serialized scatter)."""
     MP, P = pair_valid.shape
     ids = jnp.where(
         pair_valid,
@@ -101,9 +101,9 @@ def merge_proposals(pass3, gidx, T_delta, pair_valid, pair_level,
     contour_db.h:286-338), bit-identical to processing hints one by one in
     input order (the reference's (q_level, anchor, ranked-hit) order).
 
-    TPU decomposition (r3; the r2 form was ONE while_loop over all passing
-    hints whose body carried the (C, 4, NUM_SLOTS) union maps — 2.36 ms/scan
-    of serialized small-kernel iterations on a v5e):
+    Decomposition (an earlier form was ONE while_loop over all passing
+    hints whose body carried the (C, 4, NUM_SLOTS) union maps — one
+    serialized small-kernel iteration per hint):
 
     1. Hints touching DIFFERENT candidate poses never interact, so the
        sequential trip count drops from #passing hints to max hints per
@@ -264,9 +264,10 @@ def merge_proposals(pass3, gidx, T_delta, pair_valid, pair_level,
     sel_end = ((sk[None, :] == jnp.arange(NK, dtype=sk.dtype)[:, None])
                & grp_end[None, :]).astype(jnp.float32)      # (NK, MP)
     # precision=HIGHEST: the one-hot matmul must be an exact copy of the
-    # selected row. TPU's default f32 matmul rounds operands through bf16,
-    # which would drift prop_perc ~0.4% off the host CandidateManager the
-    # parity chain pins (taken_u alone would survive via the 0.5 threshold).
+    # selected row. A backend's default f32 matmul may round operands to a
+    # narrower format (bf16 or TF32), which would drift prop_perc off the
+    # host CandidateManager the parity chain pins (taken_u alone would
+    # survive via the 0.5 threshold).
     taken_u = jnp.matmul(sel_end, t_scan.astype(jnp.float32),
                          precision=jax.lax.Precision.HIGHEST) > 0.5
     perc_u = jnp.matmul(sel_end, p_scan,
@@ -380,7 +381,8 @@ def tidy_candidates(st: CandidateState, area_perc_lb: float,
 
     w = _area_weights()
     area_all = jnp.einsum("cps,s->cp",
-                          jnp.where(st.prop_taken, st.prop_perc, 0.0), w)
+                          jnp.where(st.prop_taken, st.prop_perc, 0.0), w,
+                          precision=jax.lax.Precision.HIGHEST)
     area = area_all[rows, sel]
     T_sel = st.prop_T[rows, sel]
     votes = st.prop_votes[rows, sel]

@@ -10,11 +10,13 @@ verified in one XLA dispatch over a padded hint axis H:
   TF       closed-form 2-D umeyama        (contour_mng.h:1251-1277)
 
 Inputs are per-hint gathered candidate tables (src_*) and the query ScanDesc.
-Early exits become masks; every hint computes everything (the TPU way).
+Early exits become masks; every hint computes everything (batched,
+branch-free).
 """
 
 from __future__ import annotations
 
+import fractions
 import functools
 import math
 from typing import NamedTuple
@@ -58,6 +60,27 @@ class CascadeResult(NamedTuple):
 
 # ---------------------------------------------------------------------------
 
+def scaled_ratio(num, den, p: float):
+    """(num * D, den * N) as int32, with p = N / D read from p's shortest
+    decimal form (0.2 -> 1/5, 0.95 -> 19/20): comparing the two compares
+    num / den with p EXACTLY, for integer-valued num and den.
+
+    Cell-count ratios land exactly on such thresholds often (7/35 vs 0.2,
+    874/920 vs 0.95). A float division decides those ties only if it is
+    correctly rounded, and GPU backends may divide to within an ulp instead,
+    which flips the gate (an ellipse joins the GMM, a hint fails check 1).
+    The integer form decides every case as the reference's double
+    arithmetic does: two ratios with denominators <= 22500 that differ at
+    all differ by far more than a double's rounding."""
+    frac = fractions.Fraction(repr(float(p)))
+    if frac.denominator > 4096:
+        raise ValueError(f"threshold {p} needs a short decimal form (at "
+                         "most 4096 as the denominator) to be compared "
+                         "exactly against cell-count ratios")
+    to_int = lambda x: jnp.round(jnp.asarray(x)).astype(jnp.int32)
+    return (to_int(num) * frac.denominator, to_int(den) * frac.numerator)
+
+
 def check_sim_batched(cnt_s, eig_s, h_s, comr_s, cnt_t, eig_t, h_t, comr_t,
                       th: ContourSimThresConfig):
     """Vectorized ContourView::checkSim (contour.h:278-329). All args broadcast."""
@@ -70,8 +93,11 @@ def check_sim_batched(cnt_s, eig_s, h_s, comr_s, cnt_t, eig_t, h_t, comr_t,
     def diff_delt(a, b, d):
         return jnp.abs(a - b) > d
 
-    fail = diff_perc(cnt_s, cnt_t, th.tp_cell_cnt) & \
-        diff_delt(cnt_s, cnt_t, th.ta_cell_cnt)
+    # cell counts are integers: their relative difference is compared
+    # exactly (scaled_ratio), the float quantities below by division
+    lhs, rhs = scaled_ratio(jnp.abs(cnt_s - cnt_t), jnp.maximum(cnt_s, cnt_t),
+                            th.tp_cell_cnt)
+    fail = (lhs > rhs) & diff_delt(cnt_s, cnt_t, th.ta_cell_cnt)
     fail |= (jnp.maximum(eig_s[..., 1], eig_t[..., 1]) > 2.0) & \
         diff_perc(jnp.sqrt(eig_s[..., 1]), jnp.sqrt(eig_t[..., 1]), th.tp_eigval)
     fail |= (jnp.maximum(eig_s[..., 0], eig_t[..., 0]) > 2.0) & \
@@ -164,8 +190,8 @@ def run_cascade(
 
     pot_overflow = jnp.sum(close.reshape(H, -1), axis=1) > pot
     # ONE 2-operand stable sort instead of argsort + three take_along_axis
-    # gathers: per-row gathers of (H, M*M) lower to serialized TPU gathers
-    # (~2.7 ms each at H=512, profiled 2026-08-18); lax.sort co-sorts the
+    # gathers: per-row gathers of (H, M*M) are data-dependent gathers,
+    # while lax.sort co-sorts the
     # packed slot id in the same bitonic passes for free. Stable = ties keep
     # the flattened insertion order, exactly like the stable argsort before.
     sv, s_flat = jax.lax.sort((orie, p_flat), dimension=1, num_keys=1,
@@ -179,10 +205,9 @@ def run_cascade(
     #   count = #(v <= v_i + rng) - i + #(v <= v_i + rng - 2pi)
     # searchsorted(sorted, q, "right") == sum(v <= q) element-exactly (incl.
     # the all-inf masked tail: inf <= inf is True both ways). The broadcast
-    # compare-and-sum is one fused VPU reduction; jnp.searchsorted's default
-    # binary-search scan lowered to 2 whiles over (H, P_POT) carries with 10
-    # S(1) round-trips each — 54 ms/step of the r2 profile, the single
-    # largest cost in the whole pipeline.
+    # compare-and-sum is one fused elementwise reduction; jnp.searchsorted's
+    # default binary-search scan lowers to 2 while loops over (H, P_POT)
+    # carries.
     def window_counts(vals, n):
         hi = vals + ANG_RANGE
         c_main = jnp.sum(vals[None, :] <= hi[:, None], axis=1)
@@ -208,7 +233,7 @@ def run_cascade(
     # ONE gather of the packed flat id instead of two slot gathers, then two
     # packed-channel gathers for the pair identity instead of three: level
     # and seq ride one int32 (level*64 + seq, both < 64). Per-row gathers of
-    # (H, P)-shaped outputs cost ~0.28 ms each on the v5e; packing removes 3.
+    # (H, P)-shaped outputs are separate gathers; packing removes 3.
     g_flat = jnp.take_along_axis(s_flat, win_pos, axis=1)
     g_src_slot = g_flat % M
     g_tgt_slot = g_flat // M
@@ -236,8 +261,7 @@ def run_cascade(
     # The 12 stats channels arrive PRE-PACKED (ops/descriptor.pack_tab12,
     # archived per scan as ScanDesc.tab12) so the per-pair lookup is ONE
     # gather instead of nine — the pack itself used to be rebuilt from nine
-    # store gathers per cascade chunk, the single largest per-chunk cost on
-    # chip (+0.32 ms, scripts/cascade_split_bench.py 2026-08-20).
+    # store gathers per cascade chunk.
     J = src_tab12.shape[2]
 
     def unpack12(g):

@@ -1,6 +1,6 @@
 """Per-scan descriptor pipeline on device: points -> ScanDesc, one jitted fn.
 
-TPU-first design replacing the reference's per-scan hot path
+Accelerator-first design replacing the reference's per-scan hot path
 (makeBEV + makeContoursRecurs, contour_mng.h:505-960, ~9 ms single-thread C++):
 
 - BEV rasterization = scatter-max with an argmax payload (first-wins ties).
@@ -71,11 +71,9 @@ def rasterize_bev(points: jnp.ndarray, cfg: ContourManagerConfig):
     P = points.shape[0]
 
     # Sort-based reduction instead of scatter-max + gather + scatter-min:
-    # on this TPU a 3-key lax.sort of 131k elements costs 0.14 ms while ONE
-    # 131k scatter or gather costs ~1.1 ms (scripts/desc_latency_bench.py,
-    # 2026-08-18) — the scatter formulation paid that tax three times.
-    # Sort cost scales with total operand count, so both passes carry the
-    # MINIMUM payload: the point-index tie-break key is replaced by
+    # two sorts replace three full-width scatter/gather passes. Sort cost
+    # scales with total operand count, so both passes carry the MINIMUM
+    # payload: the point-index tie-break key is replaced by
     # lax.sort's stability (is_stable defaults to True — equal (pid, -h)
     # rows keep array order, which IS the reference's first-point-wins
     # rule), sentinels are recognized by their -inf key instead of an index
@@ -134,11 +132,10 @@ def cc_labels(masks: jnp.ndarray, flush: str = "scan") -> jnp.ndarray:
     segmented min-scans (lax.associative_scan, log2(n) shift-mins) —
     straight corridors collapse in one pass instead of one pixel per pass.
     The earlier pointer-jumping step (label <- label[label]) did the
-    long-range collapse with take_along_axis gathers, which lower to ~1 ms
-    serialized TPU gathers EACH (profiled 2026-08-18, 2 jumps/iteration =
-    the bulk of ~7.4 ms/scan); the scans are pure VPU shifts. Fixpoint
-    (lax.while_loop) makes the label invariant independent of iteration
-    count, so the replacement cannot change results, only speed.
+    long-range collapse with data-dependent take_along_axis gathers; the
+    scans are pure elementwise shifts. Fixpoint (lax.while_loop) makes the
+    label invariant independent of iteration count, so the replacement
+    cannot change results, only speed.
     """
     L, nr, nc = masks.shape
     S = nr * nc
@@ -147,8 +144,8 @@ def cc_labels(masks: jnp.ndarray, flush: str = "scan") -> jnp.ndarray:
     brk = ~masks                     # background breaks every run
 
     # Packed single-int32 segmented min-scans: a (value, break-flag) tuple
-    # scan costs ~5 VPU ops per combine; packing the segment id into the
-    # high bits and the NEGATED label into the low bits turns the segmented
+    # scan costs ~5 elementwise ops per combine; packing the segment id into
+    # the high bits and the NEGATED label into the low bits turns the segmented
     # min into a plain running MAX (1 op per combine). Along the scan
     # direction the segment id is nondecreasing, so the running max's
     # segment component always equals the current position's segment —
@@ -165,9 +162,7 @@ def cc_labels(masks: jnp.ndarray, flush: str = "scan") -> jnp.ndarray:
         b32 = brk.astype(jnp.int32)
         # fwd and rev scans stay SEPARATE (reverse=True): stacking them on a
         # leading axis-of-2 with pre-flipped data halves the scan launches
-        # but the flip/stack data movement costs more than it saves —
-        # measured +1.4 ms/scan on the v5e (scripts/cc_variants_bench.py,
-        # 2026-08-19: r2loop 2.83 vs pack2 4.27 ms incl. raster prefix)
+        # but the flip/stack data movement costs more than it saves
         segs[axis] = (
             jnp.cumsum(b32, axis=axis) << 15,
             jnp.flip(jnp.cumsum(jnp.flip(b32, axis=axis), axis=axis),
@@ -210,9 +205,7 @@ def cc_labels(masks: jnp.ndarray, flush: str = "scan") -> jnp.ndarray:
             # per direction (each step 2 XLA ops) — same fixpoint labels as
             # the associative_scan lowering (it computes the identical
             # running max), ~4x fewer ops per flush. Aimed at the vmapped
-            # chain build where the scan lowering's op count dominated
-            # (cc 2.79 ms/scan of the 4.68 ms/scan vmapped-16 build,
-            # desc_latency_bench --vmap 16, 2026-08-20).
+            # chain build where the scan lowering's op count dominated.
             x = seg_f | neg
             y = seg_r | neg
             d = 1
@@ -236,10 +229,8 @@ def cc_labels(masks: jnp.ndarray, flush: str = "scan") -> jnp.ndarray:
 
     def propagate(lab):
         if flush == "hillis":
-            # separable 3x3 min as 4 shift+min ops — the measured winner
-            # over lax.reduce_window in the vmapped chain form (hillsep4
-            # 0.854 vs hilli4 0.967 vs scan-lowering 3.243 ms/scan,
-            # scripts/cc_variants_bench.py --vmap 16 on-chip 2026-08-20)
+            # separable 3x3 min as 4 shift+min ops (fewer ops than
+            # lax.reduce_window in the vmapped chain form)
             m = jnp.minimum(lab, jnp.minimum(shiftv(lab, 1, 1),
                                              shiftv(lab, -1, 1)))
             neigh = jnp.minimum(m, jnp.minimum(shiftv(m, 1, 2),
@@ -254,17 +245,14 @@ def cc_labels(masks: jnp.ndarray, flush: str = "scan") -> jnp.ndarray:
         return jnp.where(masks, run_min(new, 1), S)
 
     # Static unroll + fixpoint tail: on KITTI-scale BEVs the fixpoint lands
-    # within 2-3 propagates and is verified by the 3rd-4th (measured over
-    # synth renders, 2026-08-19: seq row-then-col flush converges incl.
-    # verify in mean 3.3 / max 4 propagates). Unrolling 4 propagates and
+    # within 2-3 propagates and is verified by the 3rd-4th (counted over
+    # synth renders: row-then-col flush converges incl. verify in mean 3.3 /
+    # max 4 propagates). Unrolling 4 propagates and
     # seeding the while_loop with the (p3 != p4) convergence bit removes the
     # per-iteration device-side convergence reduction for ~all scans — the
     # loop body never runs unless the scan genuinely needs a 5th round.
     # Labels only decrease toward the component min, so extra propagates
     # never change the fixpoint (exactness is iteration-count independent).
-    # A/B on the chip (scripts/cc_variants_bench.py, 2026-08-19, constant
-    # raster prefix included): 4-unroll 1.91 ms < 3-unroll 2.10 < r2's
-    # 2-props-per-iteration while_loop 2.78.
     p = [labels0]
     for _ in range(4):
         p.append(propagate(p[-1]))
@@ -297,10 +285,8 @@ def component_tables(labels: jnp.ndarray, masks_flat: jnp.ndarray,
     sc = cfg.view_stat
 
     # Per-PIXEL component sizes via sort + run-length + unsort instead of a
-    # full-width segment-sum scatter (1.27 ms/scan on the v5e) followed by a
-    # per-level chain of label-indexed gathers (~0.2 ms each): sorts of this
-    # size cost ~0.05 ms (scripts/desc_latency_bench.py, 2026-08-18). A
-    # component's label is its min pixel index, so sorting each level's
+    # full-width segment-sum scatter followed by a per-level chain of
+    # label-indexed gathers. A component's label is its min pixel index, so sorting each level's
     # labels groups components into runs; the run length IS the cell count.
     iota_s = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32)[None], (L, S))
     sl, pos = jax.lax.sort((labels, iota_s), dimension=1, num_keys=1)
@@ -361,11 +347,10 @@ def component_tables(labels: jnp.ndarray, masks_flat: jnp.ndarray,
     # Moments for the SELECTED top-K components only, as dense masked
     # reductions over the (L, K, S) membership mask. The previous form —
     # nine full-table segment-sum scatters (jnp .at[].add over 6x22501
-    # bins) — cost ~1.2 ms EACH on the TPU (scatters serialize; profiled
-    # 2026-08-18, ~10.6 ms/scan total); only the count table needs full
-    # width (validity chain + top-K selection), so it keeps the one scatter
-    # and everything else becomes matmul/VPU-shaped dense math over the at
-    # most K components that survive selection.
+    # bins); only the count table needs full width (validity chain + top-K
+    # selection), so it keeps the one scatter and everything else becomes
+    # matmul/elementwise-shaped dense math over the at most K components
+    # that survive selection.
     sel = labels[:, None, :] == jnp.minimum(rep, S - 1)[:, :, None]
     sel &= (rep[:, :, None] < S)                       # (L, K, S) membership
     selF = sel.astype(jnp.float32)
@@ -442,30 +427,27 @@ def component_tables(labels: jnp.ndarray, masks_flat: jnp.ndarray,
 # 3. Retrieval keys (contour_mng.h:689-830)
 # ---------------------------------------------------------------------------
 
-def make_keys(tab: dict, bev: jnp.ndarray, rowf: jnp.ndarray, colf: jnp.ndarray,
-              cfg: ContourManagerConfig):
-    """(L, A, 10) retrieval keys, zero for invalid anchors."""
-    L = cfg.n_levels
-    A = cfg.piv_firsts
-    nr, nc = cfg.n_row, cfg.n_col
-    S = nr * nc
-    num_bins = RET_KEY_DIM - 3
-    bin_len = cfg.roi_radius / num_bins
-    div_per_bin = 5
-    div_len = cfg.roi_radius / (num_bins * div_per_bin)
-    div_centers = (jnp.arange(num_bins * div_per_bin, dtype=jnp.float32)
-                   * div_len + 0.5 * div_len)
-    roi_pad = int(math.ceil(cfg.roi_radius + 1))
-    h_gate = cfg.lv_grads[DIST_BIN_LAYERS[0]]
+RING_BINS = RET_KEY_DIM - 3     # ring-histogram key dims
+RING_DIV_PER_BIN = 5            # Gaussian divisions per ring bin
 
-    # Compact the above-gate pixel pool to a fixed size. Under overflow
-    # (dense scenes exceeding pix_pool cells) keep the pixels with the
-    # highest ring weight (#levels exceeded) — they dominate the histogram —
-    # instead of the raster-order head; the contraction is a sum, so when
-    # everything fits the kept SET (and thus the keys) is unchanged. The
-    # drop count surfaces as ScanDesc.pix_overflow -> counters overflow_pix.
+
+def pixel_pool(bev: jnp.ndarray, rowf: jnp.ndarray, colf: jnp.ndarray,
+               cfg: ContourManagerConfig):
+    """The fixed-size above-gate pixel pool the ring keys are built from.
+
+    Returns ((p_r, p_c, p_rowf, p_colf, higher, p_ok), pix_overflow), each
+    pool array (pix_pool,). Under overflow (dense scenes exceeding pix_pool
+    cells) the pixels with the highest ring weight (#levels exceeded) are
+    kept — they dominate the histogram — instead of the raster-order head;
+    the contraction is a sum, so when everything fits the kept SET (and thus
+    the keys) is unchanged. The drop count surfaces as
+    ScanDesc.pix_overflow -> counters overflow_pix."""
     from contour_context_tpu.ops.candidate import select_topk_stable
 
+    L = cfg.n_levels
+    nc = cfg.n_col
+    S = cfg.n_row * nc
+    h_gate = cfg.lv_grads[DIST_BIN_LAYERS[0]]
     n_pool = min(cfg.pix_pool, S)
     pvalid = bev > h_gate
     full_higher = jnp.zeros(S, jnp.float32)
@@ -475,18 +457,27 @@ def make_keys(tab: dict, bev: jnp.ndarray, rowf: jnp.ndarray, colf: jnp.ndarray,
         -full_higher, pvalid, n_pool)
     p_r = (order // nc).astype(jnp.int32)
     p_c = (order % nc).astype(jnp.int32)
-    p_rowf = rowf[order]
-    p_colf = colf[order]
     higher = jnp.where(p_ok, full_higher[order], 0.0)
+    return (p_r, p_c, rowf[order], colf[order], higher, p_ok), pix_overflow
 
-    # anchors: (L, A)
-    cnt = tab["cnt"][:, :A]
-    anch_valid = tab["valid"][:, :A] & (cnt >= cfg.min_cont_key_cnt)
-    mean = tab["mean"][:, :A]                           # (L, A, 2)
-    accum = jnp.cumsum(cnt, axis=1).astype(jnp.float32)
 
-    v0 = mean[..., 0].reshape(-1)                       # (L*A,)
-    v1 = mean[..., 1].reshape(-1)
+def ring_histograms(v0: jnp.ndarray, v1: jnp.ndarray, pool,
+                    cfg: ContourManagerConfig) -> jnp.ndarray:
+    """(L*A,) anchor centres x the pixel pool -> (L*A, RING_BINS) ring keys.
+
+    Each pool pixel within roi_radius of an anchor adds its ring weight to
+    a Gaussian-smoothed distance histogram (RING_BINS bins of
+    RING_DIV_PER_BIN divisions, contour_mng.h:762-806). Evaluated densely:
+    an (L*A, P, divisions) Gaussian kernel contracted over the pool."""
+    nr, nc = cfg.n_row, cfg.n_col
+    p_r, p_c, p_rowf, p_colf, higher, p_ok = pool
+    num_bins, div_per_bin = RING_BINS, RING_DIV_PER_BIN
+    bin_len = cfg.roi_radius / num_bins
+    div_len = cfg.roi_radius / (num_bins * div_per_bin)
+    div_centers = (jnp.arange(num_bins * div_per_bin, dtype=jnp.float32)
+                   * div_len + 0.5 * div_len)
+    roi_pad = int(math.ceil(cfg.roi_radius + 1))
+
     r_cen = v0.astype(jnp.int32)                        # C trunc-toward-zero
     c_cen = v1.astype(jnp.int32)
     r_min = jnp.maximum(0, r_cen - roi_pad)[:, None]
@@ -501,35 +492,35 @@ def make_keys(tab: dict, bev: jnp.ndarray, rowf: jnp.ndarray, colf: jnp.ndarray,
     w = jnp.where(contrib, higher[None], 0.0)
     cnt_point = contrib.sum(axis=1).astype(jnp.float32)
 
-    if cfg.use_pallas_ring:
-        # Pallas path: VMEM-resident pixel pool, MXU contraction per anchor
-        # (see ops/pallas_kernels.py for when this wins over plain XLA)
-        from contour_context_tpu.ops.pallas_kernels import ring_key_divs_pallas
-
-        anchors8 = jnp.stack([
-            v0, v1, jnp.broadcast_to(r_min[:, 0].astype(jnp.float32), v0.shape),
-            r_max[:, 0].astype(jnp.float32), c_min[:, 0].astype(jnp.float32),
-            c_max[:, 0].astype(jnp.float32), jnp.ones_like(v0),
-            jnp.zeros_like(v0)], axis=1)
-        pool8 = jnp.stack([
-            p_r.astype(jnp.float32), p_c.astype(jnp.float32), p_rowf, p_colf,
-            higher, p_ok.astype(jnp.float32), jnp.zeros_like(p_rowf),
-            jnp.zeros_like(p_rowf)], axis=1)
-        divs, cnt_point_k = ring_key_divs_pallas(
-            anchors8, pool8, div_centers, cfg.roi_radius,
-            num_bins * div_per_bin,
-            interpret=jax.default_backend() != "tpu")
-        cnt_point = cnt_point_k
-    else:
-        # (L*A, P, D) gaussian kernel, summed over pixels
-        g = jnp.exp(-0.5 * (div_centers[None, None, :] - dist[..., None]) ** 2) \
-            / math.sqrt(2 * math.pi)
-        divs = jnp.einsum("ap,apd->ad", w, g,
-                          precision=jax.lax.Precision.HIGHEST)  # (L*A, 35)
+    # (L*A, P, D) gaussian kernel, summed over pixels
+    g = jnp.exp(-0.5 * (div_centers[None, None, :] - dist[..., None]) ** 2) \
+        / math.sqrt(2 * math.pi)
+    divs = jnp.einsum("ap,apd->ad", w, g,
+                      precision=jax.lax.Precision.HIGHEST)  # (L*A, 35)
     ring = divs.reshape(-1, num_bins, div_per_bin).sum(-1)
-    ring = jnp.where(cnt_point[:, None] > 0,
-                     ring * bin_len / jnp.sqrt(jnp.maximum(cnt_point, 1.0))[:, None],
-                     0.0)
+    return jnp.where(
+        cnt_point[:, None] > 0,
+        ring * bin_len / jnp.sqrt(jnp.maximum(cnt_point, 1.0))[:, None], 0.0)
+
+
+def make_keys(tab: dict, bev: jnp.ndarray, rowf: jnp.ndarray, colf: jnp.ndarray,
+              cfg: ContourManagerConfig):
+    """(L, A, 10) retrieval keys, zero for invalid anchors."""
+    L = cfg.n_levels
+    A = cfg.piv_firsts
+    num_bins = RING_BINS
+
+    pool, pix_overflow = pixel_pool(bev, rowf, colf, cfg)
+
+    # anchors: (L, A)
+    cnt = tab["cnt"][:, :A]
+    anch_valid = tab["valid"][:, :A] & (cnt >= cfg.min_cont_key_cnt)
+    mean = tab["mean"][:, :A]                           # (L, A, 2)
+    accum = jnp.cumsum(cnt, axis=1).astype(jnp.float32)
+
+    v0 = mean[..., 0].reshape(-1)                       # (L*A,)
+    v1 = mean[..., 1].reshape(-1)
+    ring = ring_histograms(v0, v1, pool, cfg)
 
     k0 = jnp.sqrt(tab["eig_vals"][:, :A, 1] * cnt.astype(jnp.float32))
     k1 = jnp.sqrt(tab["eig_vals"][:, :A, 0] * cnt.astype(jnp.float32))
@@ -610,11 +601,16 @@ def make_bcis(tab: dict, anch_valid: jnp.ndarray, cfg: ContourManagerConfig):
 # ---------------------------------------------------------------------------
 
 def gmm_summary(tab: dict, gmm_cfg: GMMOptConfig):
+    from contour_context_tpu.ops.cascade import scaled_ratio
+
     cnt = tab["cnt"].astype(jnp.float32)
     valid = tab["valid"]
-    lcc = jnp.maximum(tab["layer_cell_cnt"].astype(jnp.float32), 1.0)
-    ex_cum = jnp.cumsum(cnt, axis=1) - cnt
-    gmm_mask = valid & (ex_cum / lcc[:, None] < gmm_cfg.min_area_perc)
+    lcc = jnp.maximum(tab["layer_cell_cnt"], 1)
+    ex_cum = jnp.cumsum(tab["cnt"].astype(jnp.int32), axis=1) - tab["cnt"]
+    # the 95%-area prefix: keep while ex_cum / lcc < min_area_perc, compared
+    # exactly (ties such as 874/920 vs 0.95 are common; see scaled_ratio)
+    lhs, rhs = scaled_ratio(ex_cum, lcc[:, None], gmm_cfg.min_area_perc)
+    gmm_mask = valid & (lhs < rhs)
 
     lev = jnp.array(gmm_cfg.levels, jnp.int32)
     mus = tab["mean"][lev]          # (G, K, 2)
@@ -644,8 +640,7 @@ def pack_tab12(cnt, valid, mean, eig_vals, eig_vecs, vol3_mean, com_r,
     ecc, perc, ok]; bools ride as 0/1 floats and convert back exactly.
     Stored per scan (ScanDesc.tab12) so the cascade's per-pair stats lookup
     is ONE row gather from the archived store instead of nine small gathers
-    plus a per-chunk stack — the largest per-chunk cost in the on-chip
-    attribution (+0.32 ms/chunk, scripts/cascade_split_bench.py 2026-08-20).
+    plus a per-chunk stack.
     """
     from contour_context_tpu.config import DIST_BIN_LAYERS
 
@@ -678,8 +673,7 @@ def pack_gmm(mean, manual_cov, cnt, eig_vals, gmm_mask, gmm_cfg) -> jnp.ndarray:
     copies/casts of the per-level slices gmm_from_desc reads, so the
     unpacked GmmScan (db._gather_gmm_impl) is bit-identical to gathering
     the five source leaves — but the store-side lookup becomes ONE flat row
-    gather (the five-leaf gather cost +2.2 ms/query at a 131k-scan store,
-    on-chip attribution 2026-08-20)."""
+    gather instead of five gathers from multi-GB leaves."""
     lev = jnp.array(gmm_cfg.levels, jnp.int32)
     K = gmm_cfg.max_gmm_ellipses
     G = len(gmm_cfg.levels)

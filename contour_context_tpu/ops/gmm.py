@@ -101,8 +101,7 @@ def gmm_value_grad_hess(params: jnp.ndarray, src: GmmScan, tgt: GmmScan,
     """Analytic (cost, gradient, Hessian) of gmm_cost w.r.t. (x, y, theta).
 
     Replaces forward-over-reverse AD inside the LM refinement loop: the AD
-    pipeline emitted hundreds of small sequential kernels per iteration
-    (10 iterations dominated the fine-opt stage at ~2.2 ms/scan on a v5e);
+    pipeline emitted hundreds of small sequential kernels per iteration;
     the closed form is one fused elementwise pass over the (G, K, K) pair
     grid plus ten scalar reductions. Exactness is pinned against
     jax.grad/jax.hessian of gmm_cost in test_cascade.py.
@@ -245,9 +244,10 @@ def optimize_correlation(src_batch: GmmScan, tgt: GmmScan, T_init: jnp.ndarray,
     """
     def _solve3(A, b):
         """Closed-form 3x3 solve (adjugate/Cramer). jnp.linalg.solve lowers
-        tiny LU factorizations to serialized while-loops on TPU; the LM
-        system is 3x3 and damped PD, so the explicit cofactor form is one
-        fused elementwise kernel instead."""
+        a tiny LU factorization to a library call or a serialized loop; the
+        LM system is 3x3 and damped PD, so the explicit cofactor form is one
+        fused elementwise kernel instead. The product asks for HIGHEST
+        precision so no backend runs it at reduced float32 precision."""
         c00 = A[1, 1] * A[2, 2] - A[1, 2] * A[2, 1]
         c01 = A[1, 2] * A[2, 0] - A[1, 0] * A[2, 2]
         c02 = A[1, 0] * A[2, 1] - A[1, 1] * A[2, 0]
@@ -259,7 +259,8 @@ def optimize_correlation(src_batch: GmmScan, tgt: GmmScan, T_init: jnp.ndarray,
         c22 = A[0, 0] * A[1, 1] - A[0, 1] * A[1, 0]
         det = A[0, 0] * c00 + A[0, 1] * c01 + A[0, 2] * c02
         adj = jnp.array([[c00, c10, c20], [c01, c11, c21], [c02, c12, c22]])
-        return adj @ b / jnp.where(jnp.abs(det) > 1e-30, det, 1e-30)
+        return (jnp.matmul(adj, b, precision=jax.lax.Precision.HIGHEST)
+                / jnp.where(jnp.abs(det) > 1e-30, det, 1e-30))
 
     def one(src, T0, sel_i):
         def vgh(p):

@@ -1,7 +1,7 @@
 """NumPy reference oracle of the per-scan descriptor and check cascade.
 
 This is a from-scratch host implementation of the *semantics* of the reference
-pipeline (see SURVEY.md §2), used as (a) the test oracle for the TPU kernels
+pipeline (see SURVEY.md §2), used as (a) the test oracle for the device kernels
 and (b) an exact but slow fallback. Behaviors mirrored (citations into
 /root/reference):
 
@@ -15,7 +15,7 @@ and (b) an exact but slow fallback. Behaviors mirrored (citations into
 - umeyama SE(2)                                         (contour_mng.h:1251-1277)
 - GMM ellipse selection / auto-corr / L2 cost           (correlation.h:42-152)
 
-The TPU implementation is an independent design (dense fixed-shape tables);
+The device implementation is an independent design (dense fixed-shape tables);
 this oracle exists so tests can pin down numeric contracts.
 """
 
@@ -598,7 +598,7 @@ def gmm_correlation(src: GmmModel, tgt: GmmModel, sel, params, cfg: GMMOptConfig
 # The reference makes keys searchable through per-bucket buffers popped one
 # adjacent bucket PAIR per scan on a triangle-wave schedule
 # (ContourDB::pushAndBalance, contour_db.h:827-843; LayerDB::rebuild,
-# contour_db.cpp:63-317; TreeBucket buffering, contour_db.h:102-143). The TPU
+# contour_db.cpp:63-317; TreeBucket buffering, contour_db.h:102-143). The device
 # DB replaces this with a single global searchable prefix
 # (db._update_window_impl). This replica exists so a test can DRIVE both
 # models over a long trace and bound their searchable-set divergence
@@ -629,7 +629,7 @@ class RefLayerDB:
         # divergence instrumentation (not in the reference): the driver may
         # set `clock` to the current scan index; each buffer->tree pop
         # records it, so tests can compare per-key searchability timing
-        # against the TPU DB's global-prefix model without O(N^2) set diffs
+        # against the device DB's global-prefix model without O(N^2) set diffs
         self.clock = -1
         self.pop_log = {}                              # id -> clock at pop
 

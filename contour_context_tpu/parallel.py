@@ -1,11 +1,12 @@
 """Multi-chip scaling via jax.sharding: sharded key search + DP descriptor build.
 
 The reference is single-process/single-thread (SURVEY.md §2.6) — there is no
-distributed design to port. The TPU-native scale-out story for this workload:
+distributed design to port. The scale-out story for this workload:
 
 - **Database row sharding**: the retrieval-key matrix (N, L, A, 10) is sharded
   over the mesh's "data" axis on N (scans). Each device computes its local
-  masked top-k; a shard_map all_gather over ICI merges per-shard candidates and
+  masked top-k; a shard_map all_gather over the interconnect merges per-shard
+  candidates and
   a replicated global top-k picks the winners. Communication is O(devices * k)
   floats per query — negligible vs HBM scan of the shard.
 - **Data-parallel descriptor build**: independent scans batch-vmapped over the
@@ -82,7 +83,7 @@ def sharded_search(db_keys, q_keys, searchable_n,
         row_valid = jnp.abs(kt.astype(jnp.float32)).sum(1) > 0
         scan_of_row = base + jnp.repeat(jnp.arange(N_loc, dtype=jnp.int32), A)[None]
         ok = row_valid & (scan_of_row < n_searchable)
-        # BITWISE-same distance as db._key_distances (lane-major direct
+        # BITWISE-same distance as db._key_distances (row-minor direct
         # squared difference — see its docstring for why not a matmul), so
         # sharded-vs-single hit sets agree even on near-ties; bf16 keys
         # upcast in-register inside the fused accumulation
@@ -162,7 +163,7 @@ def shard_store(store, mesh: Mesh):
 
     The capacity axis (leading) of every ScanDesc buffer is row-sharded; the
     brute-force key search then scans only local rows per device and GSPMD
-    inserts the top-k combine over ICI. Capacities not divisible by the
+    inserts the top-k combine over the interconnect. Capacities not divisible by the
     mesh are zero-padded (pad_rows_to_mesh) — padded rows are invalid
     sentinels and never searchable."""
     sh = NamedSharding(mesh, P("data"))

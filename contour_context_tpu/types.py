@@ -1,4 +1,4 @@
-"""Fixed-shape per-scan descriptor pytree (the TPU replacement of ContourManager).
+"""Fixed-shape per-scan descriptor pytree (the device replacement of ContourManager).
 
 The reference keeps per-scan data in ragged std::vector structures
 (contour_mng.h:426-436); here everything is a dense fixed-shape array with
@@ -53,17 +53,15 @@ class ScanDesc(NamedTuple):
     # (4, J=10, 12) f32, channels [cnt, eig0, eig1, h, comr, mean0, mean1,
     # vec1x, vec1y, ecc, perc, ok] (ops/descriptor.pack_tab12). DERIVED from
     # the fields above and packed at build time so the cascade's per-pair
-    # stats lookup is ONE row gather instead of nine (+0.32 ms/chunk on-chip,
-    # scripts/cascade_split_bench.py 2026-08-20). load_chain recomputes it,
-    # so pre-r4 checkpoints stay loadable.
+    # stats lookup is ONE row gather instead of nine. load_chain recomputes
+    # it, so pre-r4 checkpoints stay loadable.
     tab12: jnp.ndarray        # (4, 10, 12) f32
     # pre-packed GMM source table over gmm_cfg.levels x max_gmm_ellipses:
     # flat (G*K*8,) f32, channels [mu0, mu1, cov00, cov01, cov10, cov11,
     # w(masked), majax] (ops/descriptor.pack_gmm). DERIVED; packed at build
     # time so the query's candidate-GMM gather is ONE flat row per candidate
     # instead of five gathers against multi-GB store leaves (mean /
-    # manual_cov / eig_vals / cnt / gmm_mask) — the "init" stage's
-    # store-capacity-dependent cost (+2.2 ms/query at 131k scans, on-chip
-    # attribution 2026-08-20). load_chain recomputes it (pre-r5 checkpoints
-    # stay loadable); save() skips it.
+    # manual_cov / eig_vals / cnt / gmm_mask), which made the "init"
+    # stage's cost grow with the store capacity. load_chain recomputes it
+    # (pre-r5 checkpoints stay loadable); save() skips it.
     gmm_pack: jnp.ndarray     # (G*K*8,) f32

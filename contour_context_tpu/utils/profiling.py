@@ -1,11 +1,11 @@
 """Timing / observability: TicToc stopwatch and a named-section sequential profiler.
 
-TPU-native equivalents of bm_util.h:19-218.  The profiler keeps the reference's
+Equivalents of bm_util.h:19-218.  The profiler keeps the reference's
 5-stage report layout (Index/Name/Count/Average/Stddev/Per-loop/Loop%/Accum%) so
 `log/timing_*.txt` outputs are directly comparable with the reference's golden
 timing log (log/timing_cont2_paper.txt).
 
-NOTE on TPU semantics: JAX dispatch is asynchronous; wall-clock sections only
+NOTE on device semantics: JAX dispatch is asynchronous; wall-clock sections only
 measure truthfully if the device work is forced (block_until_ready) before
 `record()`.  The pipeline does that at each recorded stage boundary.
 """

@@ -1,6 +1,6 @@
 // cont2-tpu native data plane: KITTI/MulRan .bin reader + threaded prefetcher.
 //
-// TPU-native equivalent of the reference's C++ loader (pointcloud_util.h:11-50
+// Equivalent of the reference's C++ loader (pointcloud_util.h:11-50
 // readKITTIPointCloudBin) plus the production piece the single-threaded
 // reference lacks: a multi-threaded prefetch ring that keeps the host->device
 // upload queue fed ahead of the compute stream (pipeline.py / bench.py use a

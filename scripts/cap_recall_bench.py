@@ -1,11 +1,9 @@
-"""Hint-cap vs recall vs latency sweep on the SAME epochs (VERDICT r4 #4).
+"""Hint-cap vs recall vs latency sweep on the SAME epochs.
 
-The r4 headline disclosed 411/456 loops found (90.1%) at hint cap 512 under
-~35x-KITTI hint density (overflow_hints 199k over 1888 scans): the fixed
-caps drop ~10% of expected revisits at that density. This script measures
-the tradeoff ON THE SAME WORLD, SCANS AND SEEDS for a ladder of
-`max_check_cands` caps, so a shipping point can be chosen with both numbers
-on the table:
+At ~35x-KITTI hint density the fixed hint cap (max_check_cands) drops part
+of the hits each scan. This script measures the tradeoff ON THE SAME WORLD,
+SCANS AND SEEDS for a ladder of `max_check_cands` caps, so a shipping point
+can be chosen with both numbers on the table:
 
     cap in {128, 256, 512, 1024} (CONT2_CAP_SWEEP to override)
     -> per-scan device time (chained-dispatch differencing, bench.py
@@ -17,14 +15,12 @@ cascade W=128, check-1 prefilter, p_pot=128, max_pass_hints=128), so the
 sweep isolates the hint cap. Scans are rendered ONCE and identical for
 every cap; `missed_rows` lets found-SETS be diffed across caps.
 
-Run on the real chip:
-    timeout 3600 python scripts/cap_recall_bench.py > /tmp/capsweep.json \
-        2>/tmp/capsweep.log
-CPU smoke: CONT2_CAP_SMOKE=1.
+Run on the GPU:
+    timeout 3600 python scripts/cap_recall_bench.py > capsweep.json \
+        2>capsweep.log
+CPU smoke: JAX_PLATFORMS=cpu CONT2_CAP_SMOKE=1.
 
-Output: ONE JSON line {caps: {cap: {ms, found, ...}}, ...}; results are
-recorded in BASELINE.md next to the headline (which states its own
-found-rate inline).
+Output: ONE JSON line {caps: {cap: {ms, found, ...}}, ...}.
 """
 
 import dataclasses
@@ -56,19 +52,15 @@ def main():
     import jax.numpy as jnp
 
     smoke = os.environ.get("CONT2_CAP_SMOKE", "0") == "1"
-    if smoke:
-        jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser("~/.cache/jax"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from contour_context_tpu.utils.compile_cache import (
+        enable_compile_cache)
+
+    enable_compile_cache()
 
     from contour_context_tpu.config import (ContourDBConfig,
                                             ContourManagerConfig,
                                             PipelineConfig)
-    from contour_context_tpu.db import ContourDB, _device_fetch
+    from contour_context_tpu.db import ContourDB
     from contour_context_tpu.utils.io import pad_points
 
     caps = [int(c) for c in os.environ.get(
@@ -99,7 +91,7 @@ def main():
         return np.stack(rows)
 
     def fetch1(x):
-        return _device_fetch(x.ravel()[:1])
+        return jax.device_get(x.ravel()[:1])
 
     import threading
     switch_info = {}
@@ -172,7 +164,7 @@ def main():
             log(f"cap {cap} chain({k}): {dt * 1e3:.1f} ms")
         dt_ms = (best[K_FILL] - best[K_SMALL]) / (K_FILL - K_SMALL) * 1e3
 
-        recs = np.asarray(_device_fetch(db.recs_store[:db.n]))
+        recs = np.asarray(jax.device_get(db.recs_store[:db.n]))
         timed = recs[n_start:db.n]
         found = int(np.sum(timed[:, 0] > 0.5))
         results[str(cap)] = {

@@ -1,13 +1,12 @@
 """Per-chunk cost attribution of the check cascade (ops/cascade.run_cascade).
 
-The r4 headline split (scripts/headline_split_bench.py, 2026-08-20) puts the
-cascade at 2.43 ms/scan = ~0.6 ms per live 128-hint chunk at headline hint
-density. Every op in run_cascade is fixed-shape and data-independent (no
-data-dependent trip counts), so its per-chunk cost can be attributed on
-SYNTHETIC hint rows against a tiny store — no 660-render fill needed.
+The cascade runs in chunks of 128 live hints (db._cascade_chunked). Every
+op in run_cascade is fixed-shape and data-independent (no data-dependent
+trip counts), so its per-chunk cost can be attributed on SYNTHETIC hint
+rows against a tiny store — no 660-render fill needed.
 
-Measures, all chained-dispatch differenced (PARITY.md "Round-2 timing
-honesty"), at the shipping chunk width W=128:
+Measures, all chained-dispatch differenced, at the shipping chunk width
+W=128:
 
   - partial depths of a faithful run_cascade replica:
       check1  anchor gathers + checkSim
@@ -22,10 +21,10 @@ honesty"), at the shipping chunk width W=128:
   - the REAL run_cascade at P_POT in {512, 256, 128} and W in {128, 64}
     (module-constant patch; pot_overflow tells when 512 actually binds).
 
-Run on the real chip:
-    timeout 2400 python scripts/cascade_split_bench.py > /tmp/casc.json \
-        2>/tmp/casc.log
-CPU smoke: CONT2_CASC_SMOKE=1 (tiny chain, interpreter-friendly).
+Run on the GPU:
+    timeout 2400 python scripts/cascade_split_bench.py > casc.json \
+        2>casc.log
+CPU smoke: JAX_PLATFORMS=cpu CONT2_CASC_SMOKE=1 (tiny chain).
 """
 
 import functools
@@ -54,20 +53,16 @@ def main():
     import jax.numpy as jnp
 
     smoke = os.environ.get("CONT2_CASC_SMOKE", "0") == "1"
-    if smoke:
-        jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser("~/.cache/jax"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from contour_context_tpu.utils.compile_cache import (
+        enable_compile_cache)
+
+    enable_compile_cache()
 
     from synth import make_world, render_scan
 
     from contour_context_tpu import ops
     from contour_context_tpu.config import ContourManagerConfig, PipelineConfig
-    from contour_context_tpu.db import (ContourDB, _device_fetch,
+    from contour_context_tpu.db import (ContourDB,
                                         _gather_and_cascade_impl)
     from contour_context_tpu.ops import cascade as casc_mod
     from contour_context_tpu.ops.cascade import (_bits_from_nei, _clamp_ang,
@@ -98,7 +93,7 @@ def main():
     hv = jnp.ones((W,), bool)
 
     t0 = time.perf_counter()
-    _device_fetch(jnp.zeros(4) + 1.0)
+    jax.device_get(jnp.zeros(4) + 1.0)
     log(f"mode switch paid ({time.perf_counter() - t0:.0f}s)")
 
     def timed(fn, *fn_args):

@@ -1,27 +1,25 @@
-"""On-chip A/B of cc_labels loop strategies (desc_latency_bench 2026-08-19
-showed the r3 static-unroll REGRESSED the cc stage 1.93 -> 2.97 ms, so the
-choice must be measured, not reasoned).
+"""A/B of cc_labels loop strategies (the choice must be measured, not
+reasoned: a static unroll has regressed the cc stage before).
 
 Variants (all produce identical labels — the fixpoint is iteration-count
 independent; asserted here before timing):
-  r2loop    while_loop from labels0, 2 propagates / iteration (r2 committed)
+  r2loop    while_loop from labels0, 2 propagates / iteration
   pack2     r2loop control flow + packed fwd/rev stacked scans
-  unroll3   3 static propagates + 1-propagate while tail (r3 tree state)
+  unroll3   3 static propagates + 1-propagate while tail
   unroll4   4 static propagates + 1-propagate while tail
   u2loop2   2 static propagates + 2-propagate while tail
   hilli4    unroll4 control flow + Hillis-Steele doubling shift+max for the
             segmented run flush (8 pad/slice/max steps per direction vs
             associative_scan's odd-even recursion, ~4x fewer XLA ops —
-            aimed at the vmapped-16 chain form where cc measured
-            2.79 ms/scan, desc_latency_bench --vmap 16 2026-08-20)
+            aimed at the vmapped-16 chain form)
   hillsep4  hilli4 + separable 3x3 window min (shift+min ops instead of
             lax.reduce_window)
 
---vmap N batches the timed body over N scans (the shipping chains build
+--vmap N batches the timed body over N scans (chains may build
 descriptors in vmapped 16-scan chunks; per-scan ms = slope / N).
 
-Run on the real chip:
-    timeout 900 python scripts/cc_variants_bench.py > /tmp/cc_var.log 2>&1
+Run on the GPU:
+    timeout 900 python scripts/cc_variants_bench.py > cc_var.log 2>&1
 """
 
 import argparse
@@ -42,7 +40,7 @@ def main():
     ap.add_argument("--variants", default="r2loop,uroll3,uroll4",
                     help="comma list from: r2loop pack2 unroll3 unroll4 "
                          "u2loop2 uroll3 uroll4 hilli4 hillsep4 (docstring "
-                         "names; the 2026-08-19 record timed the first six)")
+                         "names)")
     ap.add_argument("--vmap", type=int, default=1,
                     help="batch the timed body over N vmapped scans")
     args = ap.parse_args()
@@ -50,11 +48,10 @@ def main():
     import jax
     import jax.numpy as jnp
     from jax import lax
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from contour_context_tpu.utils.compile_cache import (
+        enable_compile_cache)
+
+    enable_compile_cache()
 
     from synth import make_world, render_scan
 

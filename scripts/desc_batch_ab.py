@@ -1,22 +1,21 @@
 """A/B the chain descriptor-build batch size (config.ContourDBConfig.
 desc_batch) on the REAL headline chain.
 
-r3 measured vmapped-16 descriptor builds as a win when the CC stage was
-op-count-bound (serialized small kernels); the r5 split measured the
-OPPOSITE on the post-hillis lowering: single-scan build 0.74 ms/scan vs
-vmapped-16 1.94 ms/scan (scripts/headline_split_bench.py, 2026-08-20). This
-script settles the production knob by timing the FULL dyn chain (the
+Vmapped descriptor builds win when the CC stage is op-count-bound
+(serialized small kernels) and lose when the single-scan build fuses into
+the step; which holds depends on the descriptor lowering and the device.
+This script settles the production knob by timing the FULL dyn chain (the
 executable bench.py's headline times and step_chain_async runs) at
 desc_batch in {16, 8, 4, 1} over identical scans/seeds.
 
 Chain lengths 20/132 are residue-matched for every power-of-two batch
 <= 16 (20 = 132 = 4 mod 16, = 4 mod 8, = 0 mod 4, = 0 mod 1), so the
-differencing stays honest at each setting.
+differencing stays fair at each setting.
 
-Run on the real chip:
-    timeout 4200 python scripts/desc_batch_ab.py > /tmp/descab.json \
-        2>/tmp/descab.log
-CPU smoke: CONT2_DESCAB_SMOKE=1.
+Run on the GPU:
+    timeout 4200 python scripts/desc_batch_ab.py > descab.json \
+        2>descab.log
+CPU smoke: JAX_PLATFORMS=cpu CONT2_DESCAB_SMOKE=1.
 """
 
 import dataclasses
@@ -46,19 +45,15 @@ def main():
     import jax.numpy as jnp
 
     smoke = os.environ.get("CONT2_DESCAB_SMOKE", "0") == "1"
-    if smoke:
-        jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser("~/.cache/jax"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from contour_context_tpu.utils.compile_cache import (
+        enable_compile_cache)
+
+    enable_compile_cache()
 
     from contour_context_tpu.config import (ContourDBConfig,
                                             ContourManagerConfig,
                                             PipelineConfig)
-    from contour_context_tpu.db import ContourDB, _device_fetch
+    from contour_context_tpu.db import ContourDB
     from contour_context_tpu.utils.io import pad_points
 
     batches = [int(b) for b in os.environ.get(
@@ -89,7 +84,7 @@ def main():
         return np.stack(rows)
 
     def fetch1(x):
-        return _device_fetch(x.ravel()[:1])
+        return jax.device_get(x.ravel()[:1])
 
     import threading
     switch_info = {}
@@ -160,7 +155,7 @@ def main():
             best[k] = dt if best[k] is None else min(best[k], dt)
             log(f"B={bsz} chain({k}): {dt * 1e3:.1f} ms")
         dt_ms = (best[K_FILL] - best[K_SMALL]) / (K_FILL - K_SMALL) * 1e3
-        recs = np.asarray(_device_fetch(db.recs_store[:db.n]))
+        recs = np.asarray(jax.device_get(db.recs_store[:db.n]))
         timed = recs[n_start:db.n]
         found = int(np.sum(timed[:, 0] > 0.5))
         results[str(bsz)] = {

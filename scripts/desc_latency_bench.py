@@ -1,15 +1,14 @@
-"""Sub-stage device-time breakdown of the descriptor build (the 7.7 ms/scan
-dominant cost in the fused step, stage_latency_bench 2026-08-18).
+"""Sub-stage device-time breakdown of the descriptor build.
 
 Times PARTIAL DEPTHS of build_descriptor — raster -> masks+CC -> component
 tables -> keys -> bcis+gmm (= full) — each as a chained single-dispatch
 measurement (lax.scan of K data-dependent iterations differenced over a
-device_get; see PARITY.md "Round-2 timing honesty"). Successive depth
-differences give per-stage cost. Also isolates the raster's two scatters and
-the count-table scatter individually.
+device_get). Successive depth differences give per-stage cost. Also
+isolates the raster's two scatters and the count-table scatter
+individually.
 
-Run on the real chip:
-    timeout 900 python scripts/desc_latency_bench.py > /tmp/desc.log 2>&1
+Run on the GPU:
+    timeout 900 python scripts/desc_latency_bench.py > desc.log 2>&1
 """
 
 import argparse
@@ -38,11 +37,10 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from contour_context_tpu.utils.compile_cache import (
+        enable_compile_cache)
+
+    enable_compile_cache()
 
     from synth import make_world, render_scan
 

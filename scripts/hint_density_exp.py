@@ -8,8 +8,8 @@ descriptors built on CPU, over several world designs, and tracks BOTH the
 admitted-hint count and whether the true revisit scan is among the hints
 (`revisit_hit`, the retrieval-recall proxy).
 
-Measured results (2026-08-19, 3 fill lanes x 44 poses + 1 offset re-drive,
-12 m spacing; bench.py's world is `uniform`):
+Results (3 fill lanes x 44 poses + 1 offset re-drive, 12 m spacing;
+bench.py's world is `uniform`; hint counts are device-independent):
 
 | world                         | hints mean (p50/p90) | revisit_hit |
 |-------------------------------|----------------------|-------------|
@@ -28,8 +28,7 @@ key gate (20-25% relative, `contour_db.h` search ratios) admits most of the
 store; occlusion+viewpoint dependence reaches KITTI's density but collapses
 retrieval recall far below KITTI's. No synthetic design reached BOTH, so
 bench.py keeps the uniform world and reports hints_per_scan in its JSON —
-the headline carries ~25x the reference's cascade candidate load and is a
-CONSERVATIVE comparison against the 11 ms baseline.
+the headline carries ~25x the reference's cascade candidate load.
 
 Usage: python scripts/hint_density_exp.py [uniform|graded|lidar] [seeds...]
 """
@@ -40,8 +39,6 @@ sys.path.insert(0, ".")
 sys.path.insert(0, "tests")
 import numpy as np
 import jax
-
-jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 
 from synth import make_world, render_scan, render_scan_lidar

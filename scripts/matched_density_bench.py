@@ -1,16 +1,15 @@
 """Matched-workload headline: per-scan device time with the cascade load
 capped at the reference's density.
 
-The main bench (bench.py) is honest but CONSERVATIVE: its synthetic world's
-key-space self-similarity feeds the check cascade ~617 hints/scan (headline
-epochs, BENCH r3h) where the reference's 11.0 ms KITTI 08 profile ran at
-~17.9 KNN hits/scan (/root/reference/log/timing_cont2_paper.txt:31-39) — the
-rebuild does ~35x the reference's cascade work per timed scan. A synthetic
-world that reproduces BOTH the reference's hint density and its retrieval
-recall does not exist (design study: scripts/hint_density_exp.py), so this
-script measures the complementary point instead: the SAME world and revisit
-geometry with the retrieval hint cap set to 32 (`max_check_cands=32`, ~1.8x
-the reference's average; overflow keeps the 32 nearest-by-key-distance hits,
+The main bench's synthetic world feeds the check cascade ~600 hints/scan,
+where the reference's 11.0 ms KITTI 08 profile ran at ~17.9 KNN hits/scan
+(log/timing_cont2_paper.txt:31-39 of the reference) — ~35x the reference's
+cascade work per timed scan. A synthetic world that reproduces BOTH the
+reference's hint density and its retrieval recall does not exist (design
+study: scripts/hint_density_exp.py), so this script measures the
+complementary point instead: the SAME world and revisit geometry with the
+retrieval hint cap set to 32 (`max_check_cands=32`, ~1.8x the reference's
+average; overflow keeps the 32 nearest-by-key-distance hits,
 db._select_hints), i.e. per-scan end-to-end device time at a cascade load
 MATCHED to the reference's workload, with loop-closure found-rate on the
 timed revisit epochs reported alongside so the number cannot silently trade
@@ -18,14 +17,14 @@ recall for speed.
 
 Methodology identical to bench.py's headline (chained-dispatch differencing
 over a true device fetch; residue-matched chain lengths mod the 16-scan
-descriptor vmap chunk). Run on the real chip:
+descriptor vmap chunk). Run on the GPU:
 
-    timeout 3000 python scripts/matched_density_bench.py > /tmp/matched.json \
-        2>/tmp/matched.log
+    timeout 3000 python scripts/matched_density_bench.py > matched.json \
+        2>matched.log
+CPU smoke: JAX_PLATFORMS=cpu CONT2_MATCHED_SMOKE=1.
 
 Output: ONE JSON line {matched_ms, loops_found_timed, timed_scans,
-hints_per_scan, ...}. Not driver-run (bench.py is the artifact of record);
-results are recorded in BASELINE.md next to the conservative headline.
+hints_per_scan, ...}.
 """
 
 import dataclasses
@@ -59,17 +58,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser("~/.cache/jax"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from contour_context_tpu.utils.compile_cache import (
+        enable_compile_cache)
+
+    enable_compile_cache()
 
     from contour_context_tpu.config import (ContourDBConfig,
                                             ContourManagerConfig,
                                             PipelineConfig)
-    from contour_context_tpu.db import ContourDB, _device_fetch
+    from contour_context_tpu.db import ContourDB
     from contour_context_tpu.utils.io import pad_points
 
     # CONT2_MATCHED_SMOKE=1: tiny-scale CPU smoke (correctness only, ~min)
@@ -117,7 +114,7 @@ def main():
         return jnp.concatenate([c, pad], axis=1)
 
     def fetch1(x):
-        return _device_fetch(x.ravel()[:1])
+        return jax.device_get(x.ravel()[:1])
 
     # pay the first-fetch mode switch overlapped with rendering (bench.py)
     import threading
@@ -187,7 +184,7 @@ def main():
     # recall audit: the timed epochs are pure revisits — every scan should
     # close its loop. recs ring (db._pack_record): col 0 = found flag,
     # col 2 = correlation, col 6 = n_hints (pre-cap valid hits).
-    recs = np.asarray(_device_fetch(db.recs_store[:db.n]))
+    recs = np.asarray(jax.device_get(db.recs_store[:db.n]))
     timed = recs[n_timed_start:n_timed_end]
     found = int(np.sum(timed[:, 0] > 0.5))
     hints = timed[:, 6]

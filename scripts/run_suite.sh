@@ -13,17 +13,12 @@
 #   CONT2_CACHE_WRITE=1 scripts/run_suite.sh   # also warm the compile cache
 #                                              # (crash risk contained per file)
 #
-# Wall time is COMPILE-CACHE-BOUND: ~4-6 min with a warm ~/.cache/jax, but
-# ~75 min on a fresh machine (r4 judge measurement; the persistent cache's
-# AOT entries do not port across machine types, and these boxes are
-# single-core so compiles cannot overlap). There is no priming shortcut —
-# the cold cost IS the distinct-graph compile set; reruns are fast.
+# Wall time is COMPILE-CACHE-BOUND: a warm cache (utils/compile_cache.py;
+# tests/conftest.py keeps a per-machine subdirectory) makes reruns fast; the
+# cold cost IS the distinct-graph compile set, and the persistent cache's
+# CPU AOT entries do not port across machine types.
 set -u
 cd "$(dirname "$0")/.."
-
-# each test file owns its process here, so per-file process-global backend
-# pins (tests/test_pallas_kernels.py's CPU pin) are safe to apply
-export CONT2_FILE_ISOLATED=1
 
 rc_all=0
 failed=()

@@ -1,20 +1,17 @@
 """Stage-isolation device-time breakdown of the fused per-scan step.
 
-bench.py r2 measured the honest fused step at ~100 ms/scan on the v5e —
-9x WORSE than the reference C++ (11 ms), where the r1 enqueue-side numbers
-claimed 0.13 ms. This script attributes that time: it times PARTIAL DEPTHS
-of the query pipeline (search -> hint selection -> cascade -> proposal merge
--> tidy+GMM-init -> fine optimize) plus the descriptor build and the
-append+window tail, each as a chained single-dispatch measurement
-(lax.scan of K data-dependent iterations, differenced over a device_get —
-see PARITY.md "Round-2 timing honesty"). Successive depth differences give
-per-stage cost.
+Times PARTIAL DEPTHS of the query pipeline (search -> hint selection ->
+cascade -> proposal merge -> tidy+GMM-init -> fine optimize) plus the
+descriptor build and the append+window tail, each as a chained
+single-dispatch measurement (lax.scan of K data-dependent iterations,
+differenced over a device_get). Successive depth differences give per-stage
+cost.
 
 The partial-depth body REPLICATES db._query_step_impl's structure (kept in
 sync by eye; this is a diagnostic, the production path is the real thing).
 
-Run on the real chip:
-    timeout 1800 python scripts/stage_latency_bench.py > /tmp/stage.log 2>&1
+Run on the GPU:
+    timeout 1800 python scripts/stage_latency_bench.py > stage.log 2>&1
 """
 
 import argparse
@@ -38,11 +35,10 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from contour_context_tpu.utils.compile_cache import (
+        enable_compile_cache)
+
+    enable_compile_cache()
 
     from synth import make_world, render_scan
 

@@ -206,3 +206,66 @@ def se3_from_xyt(pose_xyt) -> np.ndarray:
     T[0, 0], T[0, 1], T[1, 0], T[1, 1] = c, -s, s, c
     T[0, 3], T[1, 3] = x, y
     return T
+
+
+def build_trajectory(n_scans: int, rng) -> list:
+    """A loopy path: several out-and-back excursions over a street grid."""
+    poses = []
+    x = y = th = 0.0
+    # waypoint circuit revisited on later laps with small lateral offsets;
+    # lap length capped so the circuit stays inside the structured world
+    # (8 m steps, world extent ~180 m -> side <= 8 * (72 // 4) = 144 m)
+    lap_len = min(max(20, n_scans // 3), 72)
+    for i in range(n_scans):
+        lap = i // lap_len
+        k = i % lap_len
+        # square circuit, 8 m steps
+        side = k * 4 // lap_len
+        step = 8.0
+        if side == 0:
+            x, y, th = step * (k % (lap_len // 4)) * 1.0, 0.0, 0.0
+        elif side == 1:
+            x, y, th = step * (lap_len // 4), step * (k % (lap_len // 4)), 1.5708
+        elif side == 2:
+            x, y, th = step * (lap_len // 4) - step * (k % (lap_len // 4)), \
+                step * (lap_len // 4), 3.1416
+        else:
+            x, y, th = 0.0, step * (lap_len // 4) - step * (k % (lap_len // 4)), \
+                -1.5708
+        jitter = 0.6 * lap
+        poses.append((x + rng.uniform(-0.3, 0.3) + jitter,
+                      y + rng.uniform(-0.3, 0.3),
+                      th + rng.uniform(-0.05, 0.05)))
+    return poses
+
+
+def write_synth_dataset(out_dir: str, world: np.ndarray, poses, rng,
+                        render=render_scan, ts_step: float = 1.0):
+    """Render `poses` and write them as an on-disk dataset in the KITTI
+    two-file format: per-scan float32 x4 `.bin` files under out_dir/bins, a
+    13-column "ts pose(3x4)" file and a "ts seq path" scan list, with
+    timestamps `ts_step` seconds apart. Scan i is rendered with seed
+    rng.integers(1 << 30), drawn in scan order. Returns (f_pose, f_lid)."""
+    import os
+
+    bin_dir = os.path.join(out_dir, "bins")
+    os.makedirs(bin_dir, exist_ok=True)
+    pose_lines, lid_lines = [], []
+    for i, p in enumerate(poses):
+        pts = render(world, p, seed=int(rng.integers(1 << 30)))
+        arr = np.zeros((len(pts), 4), np.float32)
+        arr[:, :3] = pts
+        bp = os.path.join(bin_dir, "%06d.bin" % i)
+        arr.tofile(bp)
+        ts = ts_step * i
+        T = se3_from_xyt(p)
+        pose_lines.append("%.6f %s" % (ts, " ".join(
+            "%.6f" % v for v in T[:3, :4].reshape(-1))))
+        lid_lines.append("%.6f %d %s" % (ts, i, bp))
+    f_pose = os.path.join(out_dir, "ts-sens_pose-synth.txt")
+    f_lid = os.path.join(out_dir, "ts-lidar_bins-synth.txt")
+    with open(f_pose, "w") as f:
+        f.write("\n".join(pose_lines))
+    with open(f_lid, "w") as f:
+        f.write("\n".join(lid_lines))
+    return f_pose, f_lid

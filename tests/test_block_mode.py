@@ -269,11 +269,11 @@ def test_block_chain_pts_matches_block_chain():
         list(range(len(poses))), ts.reshape(NB, B))
     jax.block_until_ready(hb.recs)
 
-    # TPU fuses the in-dispatch vmapped build differently from the
-    # one-by-one host-side builds feeding the prebuilt chain, so the
-    # GMM-refined corr/T can drift a few 1e-4 (observed on v5e: 4/288
-    # elements, 3.2e-4 abs / 1.8e-4 rel, 2026-08-21) — same class as the
-    # dyn-vs-scan accommodation below; CPU keeps the tight pin.
+    # An accelerator backend may fuse the in-dispatch vmapped build
+    # differently from the one-by-one builds feeding the prebuilt chain
+    # (reductions reassociated across the batch), so the GMM-refined corr/T
+    # can drift a few 1e-4 — same class as the dyn-vs-scan accommodation
+    # below; CPU keeps the tight pin.
     import jax
     tol = (dict(rtol=1e-5, atol=1e-6) if jax.default_backend() == "cpu"
            else dict(rtol=1e-3, atol=1e-3))
@@ -359,7 +359,7 @@ def test_step_chain_dyn_matches_step_chain():
 
     db_ref = ContourDB(cfg, capacity=32)
     # the LEGACY lax.scan lowering is the reference side here: production
-    # step_chain_async now delegates to the dyn lowering (VERDICT r4 #6),
+    # step_chain_async now delegates to the dyn lowering,
     # so this test is what still pins scan-vs-dyn record parity
     href = db_ref.step_chain_scan_async(jnp.asarray(clouds), list(range(n)),
                                         ts)
@@ -387,11 +387,11 @@ def test_step_chain_dyn_matches_step_chain():
     assert n_found >= 1, ref_recs
     assert db_dyn.n == db_ref.n
     assert db_dyn.searchable_n == db_ref.searchable_n
-    # TPU lowers the two chains differently (lax.scan body vs the dyn path's
-    # fori/while body get independent fusion/reassociation), so sub-threshold
-    # rows — stored here but never surfaced as records — can drift a few mm
-    # in the GMM-refined pose (observed on v5e: 1/216 elements, 2.6e-3 abs /
-    # 2.0e-4 rel, 2026-08-19). Records the API returns are still pinned at
+    # An accelerator backend may lower the two chains differently (lax.scan
+    # body vs the dyn path's fori/while body get independent fusion and
+    # reduction order), so sub-threshold rows — stored here but never
+    # surfaced as records — can drift a few mm in the GMM-refined pose.
+    # Records the API returns are still pinned at
     # rtol=1e-4 above; only non-CPU backends get the looser whole-store band
     # (advisor r3: the CPU mesh keeps the original exact pin).
     import jax
